@@ -11,10 +11,13 @@ case "$MODE" in
   *) echo "usage: $0 [tsan|asan]" >&2; exit 2 ;;
 esac
 ROOT="$(cd "$(dirname "$0")/.." && pwd)"
-SO="$ROOT/minlz_tpu/native/libminlz_native.so"
+# Build the sanitized library at the path the loader expects for the
+# current sources (minlz_jax/native/build.py keys it by a source hash).
+SO="$(cd "$ROOT" && python -c 'from minlz_jax.native.build import lib_path; print(lib_path())')"
+mkdir -p "$(dirname "$SO")"
 rm -f "$SO"
 g++ -O1 -g -fPIC -shared -fvisibility=hidden $FLAG \
-  "$ROOT"/minlz_tpu/native/*.cpp -o "$SO"
+  "$ROOT"/minlz_jax/native/*.cpp -o "$SO"
 # TSAN needs to be preloaded into the Python process.
 if [ "$MODE" = tsan ]; then
   PRELOAD="$(g++ -print-file-name=libtsan.so)"

@@ -7,7 +7,7 @@ import sys
 
 import pytest
 
-from minlz_tpu.cli import main
+from minlz_jax.cli import main
 
 
 @pytest.fixture
@@ -110,7 +110,7 @@ def test_compress_with_search_tables(workdir, capsys):
 
 
 def test_cli_compress_bench_verify(tmp_path, twain, capsys):
-    from minlz_tpu.cli import main
+    from minlz_jax.cli import main
 
     src = tmp_path / "in.txt"
     src.write_bytes(twain)
@@ -121,7 +121,7 @@ def test_cli_compress_bench_verify(tmp_path, twain, capsys):
 
 
 def test_cli_offset_nl_snapping(tmp_path, twain, capsys):
-    from minlz_tpu.cli import main
+    from minlz_jax.cli import main
 
     src = tmp_path / "in.txt"
     src.write_bytes(twain)
@@ -140,7 +140,7 @@ def test_cli_offset_nl_snapping(tmp_path, twain, capsys):
 
 
 def test_cli_compress_cpu_flag(tmp_path, twain):
-    from minlz_tpu.cli import main
+    from minlz_jax.cli import main
 
     src = tmp_path / "in.txt"
     src.write_bytes(twain)

@@ -1,15 +1,28 @@
-"""Device (Pallas-interpret on CPU) encode/decode pipeline tests."""
+"""Device encode/decode pipeline tests (XLA on the CPU here)."""
 
 import io
 
 import numpy as np
 import pytest
 
-from minlz_tpu.oracle import decode as odec
-from minlz_tpu.ops.device_codec import marshal_hints, parse_hints, split_body
-from minlz_tpu.ops.encode_kernel import encode_block_device
-from minlz_tpu.ops.pallas_decode import decode_block_tpu
-from minlz_tpu.stream import Reader, Writer
+from minlz_jax.oracle import decode as odec
+from minlz_jax.ops.device_codec import marshal_hints, parse_hints, split_body
+from minlz_jax.ops.encode_kernel import encode_block_device
+from minlz_jax.ops.executor import decode_blocks
+from minlz_jax.stream import Reader, Writer
+
+
+@pytest.mark.parametrize(
+    "payload", [b"MZP", b"MZPH", b"MZPH\x02\x80", b"MZPH\x01\x80\x20\x03\x05"],
+    ids=["short_magic", "no_version", "truncated_seg", "truncated_offsets"],
+)
+def test_truncated_hints_are_corrupt(payload):
+    """A hint payload cut anywhere raises CorruptError (the Reader's cue to
+    decode the block on the host), never another exception."""
+    from minlz_jax.minlz import CorruptError
+
+    with pytest.raises(CorruptError):
+        parse_hints(payload)
 
 
 def test_hint_wire_roundtrip():
@@ -45,7 +58,7 @@ def test_device_roundtrip_mixed(twain):
     _, want, pos = odec.parse_header(block)
     body = block[pos:]
     segs = split_body(body, [h[0] for h in hints])
-    assert decode_block_tpu(segs, len(data)) == data
+    assert decode_blocks([segs], [len(data)], 4096) == [data]
 
 
 def test_device_levels_monotone(twain):
@@ -87,31 +100,23 @@ def test_device_ratio_vs_reference_golden(twain):
 
 
 def test_device_decode_spec_max_block(twain):
-    """A spec-max-class big block (> the 4 MiB per-dispatch arena) must
-    decode on device by splitting into range-aligned dispatch groups
-    (r3 verdict: such blocks silently fell back to host decode)."""
-    from minlz_tpu.ops.device_codec import DeviceCodec
+    """A block spanning several hint ranges (and more lanes than one
+    block of the parse grid) decodes on the device in one dispatch."""
+    from minlz_jax.ops.device_codec import DeviceCodec
 
     dc = DeviceCodec()
-    dc_bytes = DeviceCodec.CHAIN_DISPATCH_BYTES
-    try:
-        # Shrink the dispatch ceiling so the split path runs on a
-        # CI-sized block instead of a real 8 MiB one.
-        DeviceCodec.CHAIN_DISPATCH_BYTES = 256 << 10
-        data = (twain * 60)[: 640 << 10]
-        r = dc.encode(data)
-        assert r is not None
-        block, hints = r
-        _, want, pos = odec.parse_header(block)
-        got = dc.decode(block[pos:], hints, len(data))
-        assert got == data
-    finally:
-        DeviceCodec.CHAIN_DISPATCH_BYTES = dc_bytes
+    data = (twain * 60)[: 640 << 10]
+    r = dc.encode(data)
+    assert r is not None
+    block, hints = r
+    _, want, pos = odec.parse_header(block)
+    got = dc.decode(block[pos:], hints, len(data))
+    assert got == data
 
 
 def test_device_batch_decode_api(twain):
     """DeviceCodec.decode_batch: multiple hinted blocks in one call."""
-    from minlz_tpu.ops.device_codec import DeviceCodec
+    from minlz_jax.ops.device_codec import DeviceCodec
 
     dc = DeviceCodec()
     blocks = [(twain * 10)[: 48 << 10], (twain * 7)[7:][: 32 << 10]]
@@ -170,10 +175,10 @@ def test_sharded_decode_parse_matches_unsharded(twain):
     import jax
     import numpy as np
 
-    from minlz_tpu.oracle import encode as oenc
-    from minlz_tpu.oracle.decode import parse_header
-    from minlz_tpu.ops.decode_kernel import pack_segments, parse_segments_scan
-    from minlz_tpu.parallel import make_mesh, sharded_decode_parse
+    from minlz_jax.oracle import encode as oenc
+    from minlz_jax.oracle.decode import parse_header
+    from minlz_jax.ops.decode_kernel import pack_segments, parse_segments_scan
+    from minlz_jax.parallel import make_mesh, sharded_decode_parse
 
     n_dev = len(jax.devices())
     nblocks = n_dev * 2
@@ -212,10 +217,10 @@ def test_sharded_encode_pipeline_roundtrip(twain):
     import jax
     import numpy as np
 
-    from minlz_tpu.minlz import put_uvarint
-    from minlz_tpu.oracle import decode as odec
-    from minlz_tpu.ops.encode_kernel import serialize_block
-    from minlz_tpu.parallel import make_mesh, sharded_pipeline_step
+    from minlz_jax.minlz import put_uvarint
+    from minlz_jax.oracle import decode as odec
+    from minlz_jax.ops.encode_kernel import serialize_block
+    from minlz_jax.parallel import make_mesh, sharded_pipeline_step
 
     n_dev = len(jax.devices())
     nb = n_dev * 2
@@ -260,9 +265,9 @@ def test_device_roundtrip_fuzz(twain):
     pipeline (reference FuzzEncodingBlocks analog for the device path)."""
     import numpy as np
 
-    from minlz_tpu.minlz import read_uvarint
-    from minlz_tpu.ops.device_codec import get_device_codec, parse_hints, split_body
-    from minlz_tpu.ops.pallas_decode import decode_block_tpu
+    from minlz_jax.minlz import read_uvarint
+    from minlz_jax.ops.device_codec import get_device_codec, parse_hints, split_body
+    from minlz_jax.ops.executor import decode_blocks
 
     rng = np.random.default_rng(99)
     codec = get_device_codec()
@@ -299,5 +304,5 @@ def test_device_roundtrip_fuzz(twain):
         _, p = read_uvarint(block, 1)
         seg_size, offs, _ = parse_hints(hint_payload)
         segs = split_body(block[p:], offs)
-        out = decode_block_tpu(segs, len(d), seg_size)
+        out = decode_blocks([segs], [len(d)], seg_size)[0]
         assert out == d, f"case {i} ({len(d)}B) device roundtrip mismatch"

@@ -2,8 +2,8 @@
 
 import pytest
 
-from minlz_tpu.dict import Dict, decode_with_dict, encode_with_dict
-from minlz_tpu.oracle import encode as oenc
+from minlz_jax.dict import Dict, decode_with_dict, encode_with_dict
+from minlz_jax.oracle import encode as oenc
 
 
 def test_dict_roundtrip_and_gain(twain):
@@ -33,8 +33,8 @@ def test_dict_size_limits():
 def test_dict_levels_beat_nondict(twain, level):
     """Dict-aware optimal parse at every level: beats the same-level
     non-dict encode and round-trips via both oracle and native decoders."""
-    from minlz_tpu import block as blockapi
-    from minlz_tpu.native.codec import get_codec
+    from minlz_jax import block as blockapi
+    from minlz_jax.native.codec import get_codec
 
     d = Dict(twain[:8192])
     data = twain[4096:]
@@ -75,9 +75,9 @@ def test_mesh_dict_broadcast_encode():
     import jax.numpy as jnp
     import numpy as np
 
-    from minlz_tpu.minlz import put_uvarint
-    from minlz_tpu.native.codec import get_codec
-    from minlz_tpu.parallel import make_mesh, sharded_encode_blocks_dict
+    from minlz_jax.minlz import put_uvarint
+    from minlz_jax.native.codec import get_codec
+    from minlz_jax.parallel import make_mesh, sharded_encode_blocks_dict
 
     codec = get_codec()
     if codec is None:
@@ -115,7 +115,7 @@ def test_mesh_dict_broadcast_encode():
     offs = np.asarray(offs)
     assert (np.diff(offs) == sizes[:-1]).all()
 
-    from minlz_tpu.ops.emit import encode_block_emit
+    from minlz_jax.ops.emit import encode_block_emit
 
     for b in range(nb):
         body = b"".join(

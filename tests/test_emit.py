@@ -10,10 +10,10 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from minlz_tpu.minlz import put_uvarint
-from minlz_tpu.ops import emit
-from minlz_tpu.ops import encode_kernel as ek
-from minlz_tpu.oracle import decode as odec
+from minlz_jax.minlz import put_uvarint
+from minlz_jax.ops import emit
+from minlz_jax.ops import encode_kernel as ek
+from minlz_jax.oracle import decode as odec
 
 SEG = 4096
 WIN2 = 2 * ek.WINDOW
@@ -154,7 +154,7 @@ def test_verify_extend_kills_bad_proposals(twain):
 def test_sharded_encode_bit_exact(twain):
     """Mesh path: real bytes per block, deterministic stream offsets."""
     import jax
-    from minlz_tpu.parallel import (
+    from minlz_jax.parallel import (
         assemble_blocks,
         make_mesh,
         sharded_encode_blocks,

@@ -1,74 +1,62 @@
-"""Chained decode executor (ops/exec_chain.py) correctness tests.
+"""Plain-XLA decode executor (ops/executor.py) correctness tests.
 
-Ported from the one-shot scripts/debug_chain*.py harnesses (r2 advisor
-finding): the realign/length sweep guards the uint32>>int32 arithmetic-shift
-regression in window(), and the oracle-differential round-trips exercise
-single- and multi-chain geometries end-to-end.  Runs in CPU interpret mode;
-the real-TPU lowering of the same entry points is covered by
-tests/test_tpu_smoke.py under MINLZ_TEST_TPU=1.
+The micro-tests drive the record-level entry point ``execute_records``
+against a known byte ramp: literal reads at every alignment and length,
+copies at every overlap mode, zero-literal and row-crossing records.  The
+oracle-differential round-trips run the whole device decode (parse +
+execute) on single- and multi-block batches, under hints v2 (range clamp)
+and v1 (copies anywhere earlier in the block), and hostile records must
+raise CorruptError instead of decoding.
 """
 
 import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from minlz_tpu.ops import exec_chain as ec
+from minlz_jax.minlz import CorruptError
+from minlz_jax.ops import executor as ex
+from minlz_jax.ops.encode_kernel import RANGE
 
-ROW = ec.ROW_B
-OP_T = ec.OP_T
-
-# Arena geometry shared by the micro-tests: 1 guard row + 4 compressed rows
-# + 4 output rows + 2 slack rows.
+# Micro-test geometry: a 2 KiB byte ramp as the literal source, 2 KiB of
+# output.  ROW is the old arena row width, kept so literal sources sit at
+# the same global offsets the cases were written for.
+ROW = 512
 COMP_ROWS, OUT_ROWS = 4, 4
-N_ARENA = 1 + COMP_ROWS + OUT_ROWS + 2
 COMP = (np.arange(COMP_ROWS * ROW, dtype=np.uint32) % 251).astype(np.uint8)
 
 
 def run_ops(op_list):
-    """Execute a single-chain op list against the known byte-ramp arena.
+    """Execute consecutive records against the byte ramp.
 
-    op_list entries: (llen, clen, csrc, lsrc_global_byte).  Returns the
-    decoded output bytes.
+    op_list entries: (llen, clen, csrc, lsrc_global_byte), where the ramp
+    starts at global byte ROW.  Returns the decoded output bytes.
     """
-    cap_pc = OP_T
-    ops = np.zeros((1, cap_pc, 3), np.int32)
-    for k, (llen, clen, csrc, ls) in enumerate(op_list):
-        ops[0, k, 0] = llen | (clen << 14)
-        ops[0, k, 1] = csrc
-        ops[0, k, 2] = ls
-    counts = np.array([len(op_list)], np.int32)
-    bases = np.array([(1 + COMP_ROWS) * ROW], np.int32)
-    lastrows = np.array([COMP_ROWS + OUT_ROWS], np.int32)
-    ops_flat = np.zeros(ec.tile_words(1), np.int32)
-    ops_flat[: cap_pc * 3] = ops.reshape(cap_pc * 3)
-    comp = np.zeros((1 + COMP_ROWS, 128), np.int32)
-    cw = COMP.reshape(-1, 128, 4).astype(np.int32)
-    comp[1:] = (
-        cw[:, :, 0]
-        | (cw[:, :, 1] << 8)
-        | (cw[:, :, 2] << 16)
-        | (cw[:, :, 3] << 24)
+    n = len(op_list)
+    llen, clen, csrc, lsrc = (
+        np.array([op[i] for op in op_list], np.int32) for i in range(4)
     )
-    out = ec.execute_scheduled(
-        jnp.asarray(ops_flat),
-        jnp.asarray(counts),
-        jnp.asarray(bases),
-        jnp.asarray(lastrows),
-        jnp.asarray(comp),
-        nchain=1,
-        K=1,
-        cap_chain=cap_pc,
-        n_arena_rows=N_ARENA,
+    start = np.concatenate([[0], np.cumsum(llen + clen)[:-1]]).astype(np.int32)
+    out, bad, lost, _ = ex.execute_records(
+        jnp.asarray(COMP),
+        jnp.asarray(start),
+        jnp.asarray(llen),
+        jnp.asarray(clen),
+        jnp.asarray(csrc),
+        jnp.asarray(lsrc - ROW),
+        jnp.zeros(n, jnp.int32),
+        jnp.ones(n, bool),
+        OUT_ROWS * ROW,
     )
-    ob = np.asarray(out[1 + COMP_ROWS :]).view(np.uint32).view(np.uint8)
-    return ob.reshape(-1)
+    used = int((llen + clen).sum())
+    assert not np.asarray(bad)[:used].any()
+    assert not np.asarray(lost).any()
+    return np.asarray(out)
 
 
 @pytest.mark.parametrize("align", [0, 1, 2, 3, 5, 7])
 @pytest.mark.parametrize("llen", [1, 3, 26, 511, 513])
 def test_literal_alignment_sweep(align, llen):
-    """Literal window reads at every byte alignment: catches the signed
-    right-shift realign bug (window() must shift unsigned)."""
+    """Literal reads at every byte alignment and across row widths."""
     ls = ROW + align  # global byte address of the literal source
     got = run_ops([(llen, 0, 0, ls)])
     want = COMP[align : align + llen]
@@ -80,8 +68,9 @@ def test_literal_alignment_sweep(align, llen):
     [(1, 5), (1, 100), (2, 37), (3, 64), (7, 29), (64, 200), (300, 513)],
 )
 def test_copy_offsets(offset, clen):
-    """Copies incl. RLE overlap (offset < length): eff-doubling path."""
-    seed = max(64, offset)  # copy source must stay inside the chain output
+    """Copies incl. RLE overlap (offset < length): pointer chains longer
+    than one doubling round."""
+    seed = max(64, offset)  # copy source must stay inside the output
     got = run_ops([(seed, clen, offset, ROW)])
     want = bytearray(COMP[:seed])
     for _ in range(clen):
@@ -90,8 +79,7 @@ def test_copy_offsets(offset, clen):
 
 
 def test_copy_zero_literal_op():
-    """lr == 0 ops must run their copy in the same slot (r2 fix: the copy
-    sub-slot gate is lr == 0, not 'literal ran')."""
+    """A record with no literals runs its copy at its own start."""
     got = run_ops([(16, 0, 0, ROW), (0, 8, 4, ROW)])
     want = bytearray(COMP[:16])
     for _ in range(8):
@@ -100,8 +88,8 @@ def test_copy_zero_literal_op():
 
 
 def test_row_crossing_literal_then_copy():
-    """A literal run crossing a 512B row boundary must finish before its
-    own op's copy starts."""
+    """A literal run crossing a 512B boundary must finish before its own
+    record's copy starts."""
     got = run_ops([(500, 0, 0, ROW), (30, 40, 10, ROW + 500)])
     want = bytearray(COMP[:530])
     for _ in range(40):
@@ -109,37 +97,10 @@ def test_row_crossing_literal_then_copy():
     assert bytes(got[:570]) == bytes(want)
 
 
-def _roundtrip(nkb: int):
-    from minlz_tpu.oracle import decode as odec
-    from minlz_tpu.ops.device_codec import split_body
-    from minlz_tpu.ops.encode_kernel import encode_block_device
-
-    twain = open("testdata/Mark.Twain-Tom.Sawyer.txt", "rb").read()
-    data = (twain * 40)[: nkb << 10]
-    seg, rng = 4096, ec.RANGE
-    block, hints = encode_block_device(data, seg, rng)
-    assert odec.decode_block(block) == data
-    _, want, pos = odec.parse_header(block)
-    segs = split_body(block[pos:], [h[0] for h in hints])
-    got = ec.decode_block_chained(segs, len(data), seg, rng)
-    assert got == data
-
-
-def test_differential_roundtrip_single_chain():
-    _roundtrip(32)  # 8 segments -> nchain == 1
-
-
-def test_differential_roundtrip_multi_chain():
-    nkb = 160  # 40 segments -> multiple ranges -> nchain >= 2
-    spc, nchain = ec.chain_geometry(40, 4096)
-    assert nchain >= 2
-    _roundtrip(nkb)
-
-
 def _encode_segs(data, seg, rng):
-    from minlz_tpu.oracle import decode as odec
-    from minlz_tpu.ops.device_codec import split_body
-    from minlz_tpu.ops.encode_kernel import encode_block_device
+    from minlz_jax.oracle import decode as odec
+    from minlz_jax.ops.device_codec import split_body
+    from minlz_jax.ops.encode_kernel import encode_block_device
 
     block, hints = encode_block_device(data, seg, rng)
     assert odec.decode_block(block) == data
@@ -147,44 +108,88 @@ def _encode_segs(data, seg, rng):
     return split_body(block[pos:], [h[0] for h in hints])
 
 
+def _roundtrip(nkb: int, rng: int = RANGE):
+    twain = open("testdata/Mark.Twain-Tom.Sawyer.txt", "rb").read()
+    data = (twain * 40)[: nkb << 10]
+    segs = _encode_segs(data, 4096, rng)
+    assert ex.decode_blocks([segs], [len(data)], 4096) == [data]
+
+
+def test_differential_roundtrip_single_chain():
+    _roundtrip(32)  # 8 segments inside one range
+
+
+def test_differential_roundtrip_multi_chain():
+    _roundtrip(160)  # 40 segments over two 128 KiB ranges
+
+
 def test_batched_multi_block_decode():
-    """Several blocks of mixed sizes through one scheduled dispatch: the
-    serpentine range schedule must keep per-block outputs bit-exact."""
+    """Several blocks of mixed sizes through one dispatch: per-block
+    outputs stay bit-exact and copies never cross blocks."""
     twain = open("testdata/Mark.Twain-Tom.Sawyer.txt", "rb").read()
     rng_np = np.random.default_rng(3)
-    seg, rng = 4096, ec.RANGE
+    seg = 4096
     blocks = [
         (twain * 40)[: 160 << 10],                      # text, 40 segs
         rng_np.integers(0, 16, 96 << 10, dtype=np.uint8).tobytes(),
         (twain * 40)[13:][: 64 << 10],                  # different phase
         bytes(48 << 10),                                # RLE zeros
     ]
-    segs = [_encode_segs(b, seg, rng) for b in blocks]
-    got = ec.decode_blocks_chained(
-        segs, [len(b) for b in blocks], seg, rng
-    )
+    segs = [_encode_segs(b, seg, RANGE) for b in blocks]
+    got = ex.decode_blocks(segs, [len(b) for b in blocks], seg)
     for g, b in zip(got, blocks):
         assert g == b
 
 
-def test_batched_cap_overflow_fallback():
-    """A tiny cap_pr forces the overflow path: the block must be redone
-    solo at the worst-case capacity and still decode bit-exact."""
-    twain = open("testdata/Mark.Twain-Tom.Sawyer.txt", "rb").read()
-    seg, rng = 4096, ec.RANGE
-    data = (twain * 40)[: 64 << 10]
-    segs = _encode_segs(data, seg, rng)
-    got = ec.decode_blocks_chained(
-        [segs], [len(data)], seg, rng, cap_pr=ec.OP_T
-    )
-    assert got[0] == data
+def test_v1_copy_across_segments_beyond_128k():
+    """Hints v1 (no range clamp): copies reach more than 128 KiB back,
+    across segments, and still decode bit-exact."""
+    from minlz_jax.oracle import encode as oenc
+
+    rng_np = np.random.default_rng(11)
+    seg = 4096
+    head = rng_np.integers(0, 256, 3 * seg, dtype=np.uint8).tobytes()
+    filler = rng_np.integers(0, 256, 40 * seg, dtype=np.uint8).tobytes()
+    data = head + filler + head  # the tail copies 172 KiB back
+    segs = []
+    for i in range(0, len(head) + len(filler), seg):
+        s = bytearray()
+        oenc.emit_literals(s, data[i : i + seg])
+        segs.append(bytes(s))
+    dist = len(head) + len(filler)
+    assert dist > 128 << 10
+    for i in range(3):
+        s = bytearray()
+        oenc.emit_copy3(s, dist, seg)
+        segs.append(bytes(s))
+    assert ex.decode_blocks([segs], [len(data)], seg) == [data]
+
+
+def test_hostile_copy_before_block_start_raises():
+    """A record whose copy source precedes its block is flagged, and the
+    codec raises CorruptError — also when an earlier block of the batch
+    could serve the read."""
+    from minlz_jax.oracle import encode as oenc
+    from minlz_jax.ops.device_codec import DeviceCodec, marshal_hints
+
+    seg = 4096
+    s0 = bytearray()
+    oenc.emit_literals(s0, b"ab" * 8)
+    oenc.emit_copy2(s0, 100, 64)  # reads 84 bytes before the block
+    good = bytearray()
+    oenc.emit_literals(good, bytes(range(200)))
+    n_bad = 16 + 64
+    got = ex.decode_blocks([[bytes(good)], [bytes(s0)]], [200, n_bad], seg)
+    assert got[0] == bytes(range(200))
+    assert got[1] is None
+    with pytest.raises(CorruptError):
+        DeviceCodec().decode(bytes(s0), marshal_hints(seg, [(0, 0)]), n_bad)
 
 
 def test_seg8192_whole_literal_record():
     """seg = 8192 with a wholly-literal segment: llen = 8192 and lsrc >
-    8191 must survive the two-word op packing (r3 advisor high finding —
-    13-bit fields silently corrupted such blocks)."""
-    from minlz_tpu.oracle import encode as oenc
+    8191 in the second segment."""
+    from minlz_jax.oracle import encode as oenc
 
     seg = 8192
     rng_bytes = (np.arange(seg, dtype=np.uint32) * 2654435761 >> 13).astype(
@@ -197,57 +202,81 @@ def test_seg8192_whole_literal_record():
     # Literal-heavy second segment so its lsrc cursor passes 8191 too.
     oenc.emit_literals(s1, twain[:seg])
     data = rng_bytes + twain[:seg]
-    got = ec.decode_block_chained([bytes(s0), bytes(s1)], len(data), seg)
-    assert got == data
+    got = ex.decode_blocks([[bytes(s0), bytes(s1)]], [len(data)], seg)
+    assert got == [data]
 
 
 def test_seg8192_device_roundtrip():
     """End-to-end device encode/decode at seg = 8192 (the DeviceCodec
     geometry for 2-4 MiB blocks), mixing incompressible and text data."""
-    from minlz_tpu.oracle import decode as odec
-    from minlz_tpu.ops.device_codec import split_body
-    from minlz_tpu.ops.encode_kernel import encode_block_device
-
     rng = np.random.default_rng(7)
     twain = open("testdata/Mark.Twain-Tom.Sawyer.txt", "rb").read()
     data = rng.integers(0, 256, 8192, dtype=np.uint8).tobytes() + (
         twain * 2
     )[: 3 * 8192]
-    seg = 8192
-    block, hints = encode_block_device(data, seg, ec.RANGE)
-    assert odec.decode_block(block) == data
-    _, want, pos = odec.parse_header(block)
-    segs = split_body(block[pos:], [h[0] for h in hints])
-    got = ec.decode_block_chained(segs, len(data), seg, ec.RANGE)
-    assert got == data
+    segs = _encode_segs(data, 8192, RANGE)
+    assert ex.decode_blocks([segs], [len(data)], 8192) == [data]
 
 
-def test_unroll8_body_bit_exact(monkeypatch):
-    """Pin the PRODUCTION 8x-unrolled executor body on CPU (r4 verdict:
-    interpret-mode tests ran only the 2x body that TPU never uses).  The
-    unroll factor only multiplies no-op passes for exhausted chains, so
-    output must be identical — this test proves it rather than arguing it."""
-    twain = open("testdata/Mark.Twain-Tom.Sawyer.txt", "rb").read()
-    seg, rng = 4096, ec.RANGE
-    blocks = [
-        (twain * 12)[: 48 << 10],
-        bytes(16 << 10),              # RLE zeros exercise the drain path
-    ]
-    segs = [_encode_segs(b, seg, rng) for b in blocks]
+def test_uncovered_bytes_are_flagged():
+    """Bytes no record reaches (a record stops short) are flagged, and
+    records claiming one start are reported lost."""
+    out, bad, lost, _ = ex.execute_records(
+        jnp.asarray(COMP),
+        jnp.asarray(np.array([0, 10, 10], np.int32)),
+        jnp.asarray(np.array([8, 4, 4], np.int32)),
+        jnp.zeros(3, jnp.int32),
+        jnp.zeros(3, jnp.int32),
+        jnp.zeros(3, jnp.int32),
+        jnp.zeros(3, jnp.int32),
+        jnp.ones(3, bool),
+        16,
+    )
+    bad = np.asarray(bad)
+    assert not bad[:8].any() and bad[8:10].all() and bad[14:].all()
+    assert np.asarray(lost).sum() == 1
 
-    def run():
-        ec.execute_fast.clear_cache()
-        ec._decode_batch_jit.clear_cache()
-        return ec.decode_blocks_chained(
-            segs, [len(b) for b in blocks], seg, rng
-        )
 
-    try:
-        monkeypatch.setenv("MINLZ_UNROLL", "8")
-        got8 = run()
-    finally:
-        monkeypatch.delenv("MINLZ_UNROLL", raising=False)
-        ec.execute_fast.clear_cache()
-        ec._decode_batch_jit.clear_cache()
-    for g, b in zip(got8, blocks):
-        assert g == b
+def test_truncated_segment_is_corrupt():
+    """A segment stream cut inside a literal run cannot fill its segment:
+    the device flags the block."""
+    from minlz_jax.oracle import encode as oenc
+
+    s = bytearray()
+    oenc.emit_literals(s, bytes(range(100)))
+    assert ex.decode_blocks([[bytes(s[:50])]], [100], 4096) == [None]
+
+
+@pytest.mark.parametrize(
+    "n,want", [(1, 256), (256, 256), (257, 384), (385, 512), (4097, 6144),
+               (6145, 8192)]
+)
+def test_row_bucket(n, want):
+    """Row buckets: 2^k or 3 * 2^(k-1), at least 256."""
+    assert ex.row_bucket(n) == want
+
+
+def test_plan_batch_geometry():
+    """Lanes pad to a power of two (at least one Triton lane block), blocks
+    to a power of two, and each lane's output base follows its block."""
+    segs = [[b"\x00" * 10] * 3, [b"\x00" * 20]]
+    (comp, lens, base, lo, seglen, blk, blk_len), st = ex.plan_batch(
+        segs, [3 * 4096 - 5, 100], 4096
+    )
+    assert comp.shape == (32, 256) and comp.dtype == np.uint8
+    assert st == dict(nblk=2, block_out=16384)
+    assert list(lens[:5]) == [10, 10, 10, 20, 0]
+    assert list(base[:4]) == [0, 4096, 8192, 16384]
+    assert list(lo[:4]) == [0, 0, 0, 16384]
+    assert list(seglen[:5]) == [4096, 4096, 4091, 100, 0]
+    assert list(blk[:4]) == [0, 0, 0, 1]
+    assert list(blk_len) == [3 * 4096 - 5, 100]
+
+
+def test_plan_batch_rejects_bad_hints():
+    """Segment counts that do not match the block, and streams far longer
+    than a segment can need, are corrupt hints."""
+    with pytest.raises(CorruptError):
+        ex.plan_batch([[b"", b""]], [100], 4096)
+    with pytest.raises(CorruptError):
+        ex.plan_batch([[b"\x00" * 9300]], [4096], 4096)

@@ -24,10 +24,10 @@ import os
 import numpy as np
 import pytest
 
-from minlz_tpu import block as blockapi
-from minlz_tpu.minlz import CorruptError, TooLargeError, UnsupportedError
-from minlz_tpu.oracle import decode as odec
-from minlz_tpu.stream import Reader, Writer
+from minlz_jax import block as blockapi
+from minlz_jax.minlz import CorruptError, TooLargeError, UnsupportedError
+from minlz_jax.oracle import decode as odec
+from minlz_jax.stream import Reader, Writer
 
 ITERS = int(os.environ.get("MINLZ_FUZZ_ITERS", "40"))
 
@@ -98,7 +98,7 @@ def test_fuzz_encoding_blocks():
 def test_fuzz_decode_block():
     """Mutated valid blocks must decode or raise CorruptError — never
     crash — across oracle, native, and device decoders."""
-    from minlz_tpu.ops.device_codec import DeviceCodec
+    from minlz_jax.ops.device_codec import DeviceCodec
 
     rng = np.random.default_rng(0xBEEF)
     base = _gen_input(rng, 30_000)
@@ -163,8 +163,8 @@ def test_fuzz_stream_decode():
 def test_fuzz_search_no_false_negatives():
     """Random data + planted needles x random table configs: every true
     occurrence must be reported (FuzzSearchNoFalseNegatives)."""
-    from minlz_tpu.search import SearchTableConfig
-    from minlz_tpu.search.searcher import BlockSearcher
+    from minlz_jax.search import SearchTableConfig
+    from minlz_jax.search.searcher import BlockSearcher
 
     rng = np.random.default_rng(0xDEAD)
     for it in range(max(ITERS // 8, 6)):

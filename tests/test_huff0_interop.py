@@ -4,7 +4,7 @@ The 0x46 compressed-search-table chunk stores Huffman tables in the
 zstd/klauspost-huff0 wire format: RFC 8878 §4.2.1 tree descriptions
 (FSE-compressed or direct weights) followed by 4-stream bodies with a
 6-byte jump table.  The reference consumes/produces these with klauspost's
-huff0 (/root/reference/search_compressed.go:785-1052); our implementation
+huff0 (reference search_compressed.go:785-1052); our implementation
 is clean-room, so its byte-level compatibility needs an EXTERNAL anchor.
 
 libzstd (the format's reference implementation, via the ``zstandard``
@@ -21,7 +21,7 @@ import pytest
 
 zstandard = pytest.importorskip("zstandard")
 
-from minlz_tpu.utils import huff0
+from minlz_jax.utils import huff0
 
 
 def _zstd_frame_with_literals(payload: bytes, rsize: int) -> bytes:

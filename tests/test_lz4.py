@@ -3,8 +3,8 @@
 import numpy as np
 import pytest
 
-from minlz_tpu import lz4
-from minlz_tpu.oracle import decode as odec
+from minlz_jax import lz4
+from minlz_jax.oracle import decode as odec
 
 from conftest import load_corpus
 
@@ -67,8 +67,8 @@ def test_lz4_frame_conversion(twain):
     """Build an LZ4 frame by hand, convert it to a MinLZ stream, decode."""
     import io
 
-    from minlz_tpu.lz4 import LZ4_FRAME_MAGIC, convert_frame, lz4_encode_block
-    from minlz_tpu.stream import Reader, Writer
+    from minlz_jax.lz4 import LZ4_FRAME_MAGIC, convert_frame, lz4_encode_block
+    from minlz_jax.stream import Reader, Writer
 
     data = twain * 6
     bs = 64 << 10
@@ -91,7 +91,7 @@ def test_lz4_frame_conversion(twain):
 
 
 def test_lz4_frame_dependent_blocks_rejected(twain):
-    from minlz_tpu.lz4 import LZ4_FRAME_MAGIC, LZ4CorruptError, parse_lz4_frame
+    from minlz_jax.lz4 import LZ4_FRAME_MAGIC, LZ4CorruptError, parse_lz4_frame
 
     frame = bytes(LZ4_FRAME_MAGIC) + bytes([0x40, 0x40, 0]) + b"\x00" * 4
     try:
@@ -104,7 +104,7 @@ def test_lz4_frame_dependent_blocks_rejected(twain):
 def test_convert_block_native_differential(twain):
     """The C++ converter (cvtLZ4BlockAsm analog) must emit byte-identical
     MinLZ blocks to the pure-Python walker on every input shape."""
-    from minlz_tpu.native.codec import get_codec
+    from minlz_jax.native.codec import get_codec
 
     if get_codec() is None or not hasattr(
         get_codec()._lib, "minlz_lz4_convert_block"

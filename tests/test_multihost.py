@@ -8,7 +8,7 @@ per-block size exchange crosses the process boundary — the multi-host
 path claimed in parallel/mesh.py:13-15, exercised for real.
 
 Reference analog: the Writer's cross-goroutine ordered assembly
-(/root/reference/writer.go:214-272) stretched over a process boundary.
+(reference writer.go:214-272) stretched over a process boundary.
 """
 
 import os
@@ -41,9 +41,9 @@ _WORKER = textwrap.dedent(
     from jax.sharding import PartitionSpec as P
     from jax.experimental import multihost_utils
 
-    from minlz_tpu.parallel import make_mesh
-    from minlz_tpu.parallel.mesh import sharded_encode_blocks, assemble_blocks
-    from minlz_tpu.oracle import decode as odec
+    from minlz_jax.parallel import make_mesh
+    from minlz_jax.parallel.mesh import sharded_encode_blocks, assemble_blocks
+    from minlz_jax.oracle import decode as odec
 
     mesh = make_mesh()                      # global 8-device mesh, 2 hosts
     seg = 4096

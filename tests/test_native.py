@@ -12,10 +12,10 @@ error) is acceptable.
 import pytest
 from conftest import load_corpus
 
-from minlz_tpu import minlz
-from minlz_tpu.native.codec import get_codec
-from minlz_tpu.oracle import decode as odec
-from minlz_tpu.oracle import encode as oenc
+from minlz_jax import minlz
+from minlz_jax.native.codec import get_codec
+from minlz_jax.oracle import decode as odec
+from minlz_jax.oracle import encode as oenc
 
 codec = get_codec()
 pytestmark = pytest.mark.skipif(codec is None, reason="native lib unavailable")

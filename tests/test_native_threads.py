@@ -5,7 +5,7 @@ The C++ ``minlz_parse_serialize`` threads across segment ranges internally
 many Python threads (ctypes releases the GIL during the call) over many
 repetitions and byte-compares every output against a single-threaded
 baseline.  The reference's analog is its `-race -cpu=1/-cpu=4` CI matrix
-(/root/reference/.github/workflows/go.yml:46-55).
+(reference .github/workflows/go.yml:46-55).
 
 A TSAN/ASAN build of the native library is provided by
 scripts/sanitize_native.sh for deeper local checking.
@@ -16,9 +16,9 @@ import concurrent.futures as cf
 import numpy as np
 import pytest
 
-from minlz_tpu.native.codec import get_codec
-from minlz_tpu.oracle import decode as odec
-from minlz_tpu.minlz import put_uvarint
+from minlz_jax.native.codec import get_codec
+from minlz_jax.oracle import decode as odec
+from minlz_jax.minlz import put_uvarint
 
 SEG = 4096
 

@@ -9,9 +9,9 @@ import zlib
 
 import pytest
 
-from minlz_tpu import minlz
-from minlz_tpu.oracle import decode as odec
-from minlz_tpu.oracle import encode as oenc
+from minlz_jax import minlz
+from minlz_jax.oracle import decode as odec
+from minlz_jax.oracle import encode as oenc
 
 from conftest import load_corpus
 
@@ -43,11 +43,11 @@ def test_ratio_close_to_reference(twain, twain_mzb):
 @pytest.mark.parametrize("level", [-1, 1, 2, 3])
 def test_ratio_per_level(twain, twain_mzb, level):
     """Every block-API level must beat the reference golden block
-    (/root/reference/testdata/Mark.Twain-Tom.Sawyer.txt.mzb, 8,875 B):
+    (reference testdata/Mark.Twain-Tom.Sawyer.txt.mzb, 8,875 B):
     BASELINE.md requires ratio <= reference at each level.  Measured
     watermarks (optimal-parse encoder): L-1 8767, L1 8763, L2 8745,
     L3 8741 — regressions beyond the golden size fail here."""
-    from minlz_tpu import block as blockapi
+    from minlz_jax import block as blockapi
 
     enc = blockapi.encode(twain, level=level)
     assert len(enc) <= len(twain_mzb), (level, len(enc), len(twain_mzb))
@@ -106,7 +106,7 @@ def _slacked_block(body_ops: bytearray, expected_tail: bytes) -> tuple:
     """Wrap ops in a block with a cheap leading RLE run so the block always
     net-compresses (spec: compressed must be < decompressed).  Returns
     (block_bytes, expected_output)."""
-    from minlz_tpu.oracle import encode as _oe
+    from minlz_jax.oracle import encode as _oe
 
     dst = bytearray()
     _oe.emit_literals(dst, _SLACK_LITS)

@@ -9,14 +9,14 @@ import io
 import numpy as np
 import pytest
 
-from minlz_tpu.search import (
+from minlz_jax.search import (
     BlockSearcher,
     SearchTableConfig,
     build_table,
     hash_value,
 )
-from minlz_tpu.search.table import hash_values_np, parse_table_chunk
-from minlz_tpu.stream import Writer
+from minlz_jax.search.table import hash_values_np, parse_table_chunk
+from minlz_jax.stream import Writer
 
 
 def _stream(data, cfg, block_size=16 << 10, **kw):
@@ -201,7 +201,7 @@ def test_search_stream_without_tables(twain):
 def test_sidecar_build_and_search(twain):
     import numpy as np
 
-    from minlz_tpu.search.sidecar import SidecarSearcher, build_sidecar
+    from minlz_jax.search.sidecar import SidecarSearcher, build_sidecar
 
     rng = np.random.default_rng(11)
     blocks = [
@@ -245,8 +245,8 @@ def test_sidecar_deferred_and_coalesced(twain):
     sidecar_search.go:645-788)."""
     import numpy as np
 
-    from minlz_tpu.search.searcher import BlockSearcher
-    from minlz_tpu.search.sidecar import SidecarSearcher, build_sidecar
+    from minlz_jax.search.searcher import BlockSearcher
+    from minlz_jax.search.sidecar import SidecarSearcher, build_sidecar
 
     rng = np.random.default_rng(5)
     needle = b"XSTRADDLEX"
@@ -286,8 +286,8 @@ def test_sidecar_deferred_and_coalesced(twain):
 
 
 def test_sidecar_extract(twain):
-    from minlz_tpu.search.sidecar import extract_sidecar
-    from minlz_tpu.minlz import CHUNK_TYPE_REMOTE_BLOCK_REF
+    from minlz_jax.search.sidecar import extract_sidecar
+    from minlz_jax.minlz import CHUNK_TYPE_REMOTE_BLOCK_REF
 
     enc = _stream(twain * 4, SearchTableConfig(match_len=6))
     side = extract_sidecar(io.BytesIO(enc))
@@ -302,7 +302,7 @@ def test_sidecar_extract(twain):
 # ---------------------------------------------------------------------------
 
 def test_sparse_bit_table_roundtrip():
-    from minlz_tpu.search.compressed import sparse_decode, sparse_encode
+    from minlz_jax.search.compressed import sparse_decode, sparse_encode
 
     rng = np.random.default_rng(11)
     for density in (0.001, 0.01, 0.05, 0.2):
@@ -315,7 +315,7 @@ def test_sparse_bit_table_roundtrip():
 
 
 def test_compressed_table_chunk_roundtrip(twain):
-    from minlz_tpu.search.compressed import (
+    from minlz_jax.search.compressed import (
         marshal_compressed_table,
         parse_compressed_table_chunk,
     )
@@ -392,7 +392,7 @@ def test_deferred_decode_straddle_still_found(twain):
 
 
 def test_huff0_reference_shapes():
-    from minlz_tpu.utils import huff0
+    from minlz_jax.utils import huff0
 
     rng = np.random.default_rng(17)
     # Skewed full-range alphabet exercises FSE weight tables.
@@ -409,7 +409,7 @@ def test_device_table_builder_matches_host(twain):
     """build_tables_device (jnp scatter + packbits) vs the NumPy builder."""
     import numpy as np
 
-    from minlz_tpu.search.build import build_tables_device
+    from minlz_jax.search.build import build_tables_device
 
     bs = 8 << 10
     data = (twain * 3)[: 4 * bs]
@@ -430,8 +430,8 @@ def test_device_table_builder_matches_host(twain):
 def test_writer_sidecar_diversion(twain):
     """Writer(sidecar=...) keeps the main stream data-only and builds a
     searchable sidecar inline (reference WriterSidecar, writer.go:1409)."""
-    from minlz_tpu.search.sidecar import SidecarSearcher
-    from minlz_tpu.stream import Reader
+    from minlz_jax.search.sidecar import SidecarSearcher
+    from minlz_jax.stream import Reader
 
     data = twain * 8
     cfg = SearchTableConfig(match_len=6, table_bits=17)
@@ -475,7 +475,7 @@ def test_padding_src(twain):
         calls.append(n)
         return rng.integers(0, 256, n, dtype=np.uint8).tobytes()
 
-    from minlz_tpu.stream import Reader
+    from minlz_jax.stream import Reader
 
     buf = io.BytesIO()
     with Writer(buf, padding=8192, padding_src=src, add_index=False) as w:
@@ -490,8 +490,8 @@ def test_device_builder_matches_numpy_all_matchlens(twain):
     NumPy builder for every spec match length — the 64-bit multiply-shift
     hash family runs on 32-bit lanes via a mulhi emulation
     (SPEC_SEARCH.md §3.1; reference search_index.go:20-66 + packBits)."""
-    from minlz_tpu.search.build import build_table, build_table_auto
-    from minlz_tpu.search.table import SearchTableConfig
+    from minlz_jax.search.build import build_table, build_table_auto
+    from minlz_jax.search.table import SearchTableConfig
 
     block = twain[:8192]
     for m in range(1, 9):
@@ -509,9 +509,9 @@ def test_writer_uses_device_builder(twain):
     for the default no-prefix config) and stay searchable."""
     import io
 
-    from minlz_tpu.search import BlockSearcher
-    from minlz_tpu.search.table import SearchTableConfig
-    from minlz_tpu.stream import Writer
+    from minlz_jax.search import BlockSearcher
+    from minlz_jax.search.table import SearchTableConfig
+    from minlz_jax.stream import Writer
 
     buf = io.BytesIO()
     w = Writer(
@@ -535,11 +535,11 @@ def test_compressed_table_multi_table():
     density regions must produce >1 table and round-trip bit-exact."""
     import numpy as np
 
-    from minlz_tpu.search.compressed import (
+    from minlz_jax.search.compressed import (
         marshal_compressed_table,
         parse_compressed_table_chunk,
     )
-    from minlz_tpu.search.table import SearchTableConfig, parse_table_header
+    from minlz_jax.search.table import SearchTableConfig, parse_table_header
 
     cfg = SearchTableConfig(match_len=6)
     bits = cfg.auto_bits(1 << 20)
@@ -566,9 +566,9 @@ def test_search_forward_context(twain):
     ErrSearchForward, search_reader.go:179-182)."""
     import io
 
-    from minlz_tpu.search import SEARCH_FORWARD, BlockSearcher
-    from minlz_tpu.search.table import SearchTableConfig
-    from minlz_tpu.stream import Writer
+    from minlz_jax.search import SEARCH_FORWARD, BlockSearcher
+    from minlz_jax.search.table import SearchTableConfig
+    from minlz_jax.stream import Writer
 
     buf = io.BytesIO()
     w = Writer(
@@ -599,9 +599,9 @@ def test_search_stats_reference_class(twain):
     (reference search_reader.go:17-180)."""
     import io
 
-    from minlz_tpu.search import BlockSearcher
-    from minlz_tpu.search.table import SearchTableConfig
-    from minlz_tpu.stream import Writer
+    from minlz_jax.search import BlockSearcher
+    from minlz_jax.search.table import SearchTableConfig
+    from minlz_jax.stream import Writer
 
     buf = io.BytesIO()
     w = Writer(

@@ -10,15 +10,15 @@ The searcher must consume them: planted patterns are always found (the
 no-false-negative invariant) and a miss pattern skips the block without
 decoding.
 
-Reference: /root/reference/SPEC_SEARCH.md:30-92,200-280;
+Reference: reference SPEC_SEARCH.md:30-92,200-280;
 search_table.go:335-452; search_reader.go:451.
 """
 
 import io
 
-from minlz_tpu import block as blockapi
-from minlz_tpu.minlz import MAGIC_CHUNK, crc, put_uvarint
-from minlz_tpu.search.searcher import BlockSearcher
+from minlz_jax import block as blockapi
+from minlz_jax.minlz import MAGIC_CHUNK, crc, put_uvarint
+from minlz_jax.search.searcher import BlockSearcher
 
 PRIME4 = 2654435761
 

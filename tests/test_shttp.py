@@ -7,9 +7,9 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 import pytest
 
-from minlz_tpu.stream import ReadSeeker, Writer
-from minlz_tpu.utils.readahead import ReadaheadReader
-from minlz_tpu.utils.shttp import HTTPReaderAt, RangeUnsupportedError
+from minlz_jax.stream import ReadSeeker, Writer
+from minlz_jax.utils.readahead import ReadaheadReader
+from minlz_jax.utils.shttp import HTTPReaderAt, RangeUnsupportedError
 
 
 class _RangeHandler(BaseHTTPRequestHandler):
@@ -114,7 +114,7 @@ def test_readahead_reader_matches_plain_read(twain):
 
 def test_cli_decompress_http_offset(http_server, tmp_path, twain, capsys):
     """End-to-end: the CLI's -offset path over an HTTP URL."""
-    from minlz_tpu.cli import main as cli_main
+    from minlz_jax.cli import main as cli_main
 
     payload = twain * 100
     buf = io.BytesIO()

@@ -4,10 +4,10 @@ import io
 
 import pytest
 
-from minlz_tpu import block as blockapi
-from minlz_tpu import minlz
-from minlz_tpu.snappy import snappy_decode_block, snappy_encode_block
-from minlz_tpu.stream import Reader
+from minlz_jax import block as blockapi
+from minlz_jax import minlz
+from minlz_jax.snappy import snappy_decode_block, snappy_encode_block
+from minlz_jax.stream import Reader
 
 
 def test_snappy_block_roundtrip(twain):
@@ -50,8 +50,8 @@ def test_snappy_framed_stream(twain):
 
 def test_s2_repeat_length_classes():
     """Hand-built S2 blocks exercising every repeat length class."""
-    from minlz_tpu.minlz import put_uvarint
-    from minlz_tpu.snappy import s2_decode_block
+    from minlz_jax.minlz import put_uvarint
+    from minlz_jax.snappy import s2_decode_block
 
     def build(rep_bytes, want_len):
         # 8 literals 'abcdefgh', copy1(off=4,len=4) -> 'abcd', then a repeat
@@ -82,8 +82,8 @@ def test_s2_repeat_length_classes():
 
 
 def test_s2_repeat_before_copy_is_corrupt():
-    from minlz_tpu.minlz import put_uvarint
-    from minlz_tpu.snappy import s2_decode_block
+    from minlz_jax.minlz import put_uvarint
+    from minlz_jax.snappy import s2_decode_block
 
     blk = bytearray(put_uvarint(8))
     blk.append(3 << 2)  # 4 literals
@@ -94,7 +94,7 @@ def test_s2_repeat_before_copy_is_corrupt():
 
 
 def test_s2_encoder_roundtrip_with_repeats(twain):
-    from minlz_tpu.snappy import s2_decode_block, snappy_encode_block
+    from minlz_jax.snappy import s2_decode_block, snappy_encode_block
 
     # Repeat-heavy data: record-structured text hits same-offset matches.
     data = (b"key=value,0123456789;" * 4000) + twain[:100_000]
@@ -106,7 +106,7 @@ def test_s2_encoder_roundtrip_with_repeats(twain):
 
 
 def test_s2_framed_stream(twain):
-    from minlz_tpu.snappy import snappy_encode_block
+    from minlz_jax.snappy import snappy_encode_block
 
     enc = snappy_encode_block(twain, use_repeats=True)
     c = minlz.crc(twain)
@@ -123,7 +123,7 @@ def test_s2_framed_stream(twain):
 
 
 def test_s2_oversized_block_rejected():
-    from minlz_tpu.minlz import put_uvarint
+    from minlz_jax.minlz import put_uvarint
 
     # Declared decompressed size beyond s2.MaxBlockSize (4 MiB) -> ErrTooLarge
     # analog (reference decode.go:59-62).

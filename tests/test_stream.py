@@ -4,8 +4,8 @@ import io
 
 import pytest
 
-from minlz_tpu import minlz
-from minlz_tpu.stream import Index, Reader, ReadSeeker, Writer, compress, decompress
+from minlz_jax import minlz
+from minlz_jax.stream import Index, Reader, ReadSeeker, Writer, compress, decompress
 
 
 def test_roundtrip_small(twain):
@@ -397,7 +397,7 @@ def test_flush_on_write_and_async_flush(twain):
 
 def test_index_reduce_caps_entries(twain):
     """Indexes decimate to the entry cap like the reference (index.go:147)."""
-    from minlz_tpu.stream.index import Index
+    from minlz_jax.stream.index import Index
 
     idx = Index()
     # Feed far more entries than the cap with >=1MB spacing.
@@ -449,7 +449,7 @@ def test_writer_mesh_stream_roundtrip(twain):
     stream decodes bit-exact through the device Reader."""
     import jax
 
-    from minlz_tpu.parallel import make_mesh
+    from minlz_jax.parallel import make_mesh
 
     mesh = make_mesh(jax.devices())
     payload = (twain * 12)[: 96 << 10]

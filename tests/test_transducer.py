@@ -7,10 +7,10 @@ segments, exercised in stream-level tests).
 import numpy as np
 import pytest
 
-from minlz_tpu import minlz
-from minlz_tpu.oracle import decode as odec
-from minlz_tpu.oracle import encode as oenc
-from minlz_tpu.ops.decode_kernel import decode_segments_jnp
+from minlz_jax import minlz
+from minlz_jax.oracle import decode as odec
+from minlz_jax.oracle import encode as oenc
+from minlz_jax.ops.decode_kernel import decode_segments_jnp
 
 from conftest import load_corpus
 
